@@ -1,11 +1,11 @@
-"""fastqdedup_tpu — TPU-native FASTQ deduplication framework.
+"""fastqdedup_tpu — accelerator-backed FASTQ deduplication framework.
 
 A from-scratch rebuild of the capabilities of ``rhpvorderman/fastqdedup``
-(reference at /root/reference) designed TPU-first: bit-packed keys in
-HBM-resident tensors, MXU one-hot matmuls and Pallas XOR/popcount kernels for
-all-pairs Hamming distance, pigeonhole bucketing in place of the radix trie,
+(reference at /root/reference) designed batch-first: keys in dense device
+tensors, one-hot matrix products and XOR/popcount forms for all-pairs
+Hamming distance, pigeonhole bucketing in place of the radix trie,
 banded-DP Levenshtein, connected-component clustering, and
-mesh-sharded multi-chip scaling via shard_map — see SURVEY.md.
+mesh-sharded multi-device scaling via shard_map — see SURVEY.md.
 
 The public surface mirrors the reference package so existing users can
 switch imports: ``Trie``, ``within_distance``, ``average_error_rate``, the

@@ -139,6 +139,11 @@ def main() -> None:
     args = argument_parser().parse_args()
     initiate_logger(args.verbose, args.quiet)
     logger = logging.getLogger("fastqdedup")
+    import jax
+
+    from .runtime import platform
+    logger.info(f"Platform: {platform()} "
+                f"({jax.devices()[0].device_kind})")
 
     input_files = args.fastq
     check_slices = (length_string_to_slices(args.check_lengths)

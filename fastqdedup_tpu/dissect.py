@@ -14,7 +14,7 @@ semantics of the reference (/root/reference/src/fastqdedup/__init__.py:60-130):
 The public functions below take ``List[Tuple[count, str]]`` and call a
 distance oracle per pair, exactly like the reference API.  The pipeline uses
 :func:`dissect_with_adjacency` instead, which consumes a precomputed
-adjacency (from the TPU pairwise kernels) and never computes distances.
+adjacency (from the device pairwise kernels) and never computes distances.
 
 Key order-independence fact exploited here: the reference's directional
 absorption loop (append-while-iterating BFS, __init__.py:78-90) absorbs

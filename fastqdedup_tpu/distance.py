@@ -8,7 +8,7 @@ exposed through ``_distancemodule.c:46-93``.  Semantics:
 * Edit (Levenshtein): exact bounded test ``lev(s1, s2) <= max_distance``.
   The reference implements this as a branch-and-bound recursion; we use a
   banded dynamic program (band width ``2*max_distance + 1``), which computes
-  the same predicate exactly.  The batched TPU formulation lives in
+  the same predicate exactly.  The batched device formulation lives in
   ``fastqdedup_tpu.ops.edit``.
 
 These scalar functions are the public drop-in API and the oracle used by the

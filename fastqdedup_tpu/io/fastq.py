@@ -7,7 +7,7 @@ self-contained implementation.  Two read paths are provided:
 * :class:`FastqReader` — record-at-a-time iterator (API-compatible with the
   reference's usage of dnaio records: ``.name``, ``.sequence``,
   ``.qualities``, ``.fastq_bytes()``).
-* :func:`read_fastq_chunks` — the TPU-native ingest path: yields columnar
+* :func:`read_fastq_chunks` — the columnar ingest path: yields columnar
   :class:`FastqChunk` batches (concatenated bytes + offset arrays) that feed
   directly into the vectorized encode/quality kernels without creating
   per-record Python objects.

@@ -19,6 +19,12 @@ def library_path() -> str:
     if os.path.exists(_LIB) and \
             os.path.getmtime(_LIB) >= os.path.getmtime(_SRC):
         return _LIB
+    return build()
+
+
+def build() -> str:
+    """Compile ``_fastq_io.c`` into the shared library now, whatever is
+    on disk; raises ImportError when it cannot."""
     cc = sysconfig.get_config_var("CC") or os.environ.get("CC") or "cc"
     # Unique temp name + atomic replace: concurrent processes (e.g. a
     # jax.distributed job whose hosts all find the source newer) may

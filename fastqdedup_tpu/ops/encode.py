@@ -3,9 +3,9 @@
 The engine stores unique check-keys as dense uint8 matrices of alphabet
 indices.  Small indices enable two kernel families:
 
-* one-hot int8 expansion -> MXU matmul (match counting) in
-  :mod:`fastqdedup_tpu.ops.hamming`;
-* 4-bit packing into uint32 lanes -> XOR + popcount on the VPU (Pallas).
+* one-hot expansion -> matrix product (match counting) in
+  :mod:`fastqdedup_tpu.ops.hamming` and :mod:`fastqdedup_tpu.ops.bucket`;
+* 4-bit packing into uint32 lanes -> XOR + popcount.
 
 The reference instead walked a radix trie keyed on raw bytes
 (_triemodule.c:222-288); index encoding plays the role of its dynamic
@@ -15,6 +15,9 @@ Alphabet (struct at _triemodule.c:32-36).
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+import jax
+import jax.numpy as jnp
 
 UNASSIGNED = 0xFF
 
@@ -116,3 +119,42 @@ def pack_nibbles(indices: np.ndarray, lanes: int) -> np.ndarray:
     for nib in range(8):
         packed |= padded[:, nib::8] << (4 * nib)
     return packed
+
+
+def _pad_dims(length: int, alphabet_size: int) -> Tuple[int, int]:
+    """Canonical padded (length, alphabet) of the one-hot match kernels.
+
+    Lengths pad to a multiple of 16 with 0xFF (one-hot all-zero, matches
+    nothing) and the real length and distance travel as runtime scalars,
+    so one compiled program serves every nearby length and distance.  The
+    one-hot rank is the exact alphabet size for DNA (ACGTN -> 5); larger
+    alphabets round up to a multiple of 4 to bound the compiled variants,
+    and stay below 255 so 0xFF remains outside the alphabet."""
+    if alphabet_size <= 5:
+        a_pad = 5
+    else:
+        a_pad = -(-alphabet_size // 4) * 4
+    a_pad = min(a_pad, 255)
+    l_pad = max(-(-length // 16) * 16, 16)
+    return l_pad, a_pad
+
+
+def onehot_flat(x: jax.Array, alphabet_pad: int) -> jax.Array:
+    """[..., Lp] alphabet indices -> [..., Lp * alphabet_pad] int8 one-hot
+    rows (indices >= alphabet_pad, e.g. the 0xFF pad, give all-zero rows).
+    Products of them accumulate exactly in int32."""
+    onehot = jax.nn.one_hot(x, alphabet_pad, dtype=jnp.int8)
+    return onehot.reshape(*x.shape[:-1], x.shape[-1] * alphabet_pad)
+
+
+def pack_bits(within: jax.Array) -> jax.Array:
+    """bool [..., S] -> uint8 [..., ceil(S/8)], little bit order (unpack
+    with ``np.unpackbits(..., bitorder="little")``)."""
+    s = within.shape[-1]
+    s8 = -(-s // 8) * 8
+    if s8 != s:
+        pad = [(0, 0)] * (within.ndim - 1) + [(0, s8 - s)]
+        within = jnp.pad(within, pad)
+    bits = within.reshape(*within.shape[:-1], s8 // 8, 8).astype(jnp.uint8)
+    weights = jnp.left_shift(jnp.uint8(1), jnp.arange(8, dtype=jnp.uint8))
+    return jnp.sum(bits * weights, axis=-1, dtype=jnp.uint8)

@@ -11,9 +11,9 @@ correctness is transparent by construction.  Keep it small and obvious.
 A single jitted computation takes a batch of packed keys and produces
 duplicate-cluster labels and representative selection, replacing the
 reference's pop_cluster + highest_count loop (_triemodule.c:778-897,
-__init__.py:94-102) with dense TPU-friendly ops:
+__init__.py:94-102) with dense device-friendly ops:
 
-* pairwise Hamming via one-hot int8 MXU matmul;
+* pairwise Hamming via a one-hot matrix product;
 * connected components via min-label propagation with pointer doubling
   (O(log N) sweeps over an [N, N] adjacency);
 * per-cluster representative = max (count, rank) via segment scatter-max.

@@ -1,6 +1,6 @@
 """Device-side phred -> average error rate reduction.
 
-TPU-native equivalent of _fastqmodule.c:38-76: a 128-entry error-rate LUT
+Device equivalent of _fastqmodule.c:38-76: a 128-entry error-rate LUT
 gather plus a masked mean per record.  The pipeline's pass-1 quality filter
 uses it when ``FASTQDEDUP_DEVICE_QUALITY=1`` (see pipeline.py); the default
 is the bit-exact float64 host reduction in ``fastqdedup_tpu.quality``, which

@@ -26,8 +26,8 @@ SURVEY.md §2 "Parallelism inventory: none").  Scaling model:
     no coordination because pass 1 recorded each key's global
     first-occurrence position.
 
-All exchanges ride ``jax.experimental.multihost_utils`` (device all-gather
-over ICI/DCN).  Tested via a real 2-process ``jax.distributed`` CPU run
+All exchanges ride ``jax.experimental.multihost_utils`` (device
+all-gather).  Tested via a real 2-process ``jax.distributed`` CPU run
 (tests/test_distributed.py) and the single-process fallbacks.
 """
 
@@ -41,9 +41,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Initialize jax.distributed (idempotent; no-op when single-process).
 
-    With no arguments, relies on JAX's standard auto-detection (GKE/TPU-VM
-    metadata or the JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID environment variables).
+    With no arguments, relies on JAX's standard auto-detection (cluster
+    environments JAX recognizes, or the JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID environment variables).
     """
     import jax
 

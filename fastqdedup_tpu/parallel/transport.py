@@ -4,8 +4,8 @@ The key-table merge moves hundreds of megabytes of HOST data (key
 payloads, metadata columns) between processes.  Routing those bytes
 through the device collective path (``multihost_utils.process_allgather``
 — XLA:CPU's Gloo transport on CPU meshes) measures ~0.09-0.7 GB/s on
-loopback and pays a dispatch round-trip per 8 MiB chunk, which dominates
-multi-host wall time (BASELINE.md, "Multi-host exchange analysis").
+loopback and pays a dispatch round-trip per 8 MiB chunk, which dominated
+multi-host wall time on a 4-core CPU host.
 Plain TCP sockets between the same processes move several GB/s on
 loopback and 10+ GB/s on pod DCN NICs, with zero per-chunk dispatch.
 

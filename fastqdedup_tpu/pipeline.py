@@ -1140,7 +1140,6 @@ def _deduplicate_cluster_impl(
     total_records = 0
     discarded_records = 0
     total_kept = 0
-    prewarm_thread = None
 
     # Pass-1 chunks are kept in RAM for the rewrite pass while they fit
     # the budget — the reference's own peak RSS is 45-110% of the input
@@ -1239,7 +1238,6 @@ def _deduplicate_cluster_impl(
         if record_store is not None else None
     render_futures: List = []
     accumulate_futures = []
-    prewarm_started = False
     global_base = 0
     _p1 = {"iter": 0.0, "cache": 0.0, "keys": 0.0, "submit": 0.0}
     _p1_debug = logger.isEnabledFor(logging.DEBUG)
@@ -1304,19 +1302,6 @@ def _deduplicate_cluster_impl(
             key_data, key_offsets, qual_data, qual_offsets = _chunk_keys(
                 chunks, check_slices, use_qualities=filter_on_quality)
             _p1["keys"] += _time.perf_counter() - _t
-            if not prewarm_started and max_distance > 0 \
-                    and global_base >= 100_000:
-                # Load the device programs pass 2 will need while pass 1 is
-                # still parsing (program loads onto a remote TPU block for
-                # seconds each; the thread hides them).  TPU-only; no-op and
-                # None elsewhere.  Small inputs never reach the device (the
-                # engine's host path covers them), so they skip this.
-                prewarm_started = True
-                from .warmup import prewarm_async
-                prewarm_thread = prewarm_async(
-                    int(key_offsets[1] - key_offsets[0]),
-                    max_distance=max_distance,
-                    use_edit_distance=use_edit_distance)
             b = chunks[0].count
             total_records += b
             _t = _time.perf_counter()
@@ -1462,8 +1447,6 @@ def _deduplicate_cluster_impl(
                          f"{nbytes / (1024 ** 3):.3f} GiB")
         logger.debug(f"Key tables total: {groups.n} unique keys, "
                      f"{total_bytes / (1024 ** 3):.3f} GiB")
-    if prewarm_thread is not None:
-        prewarm_thread.join()
 
     part = build_partition_groups(groups, max_distance, use_edit_distance,
                                   shard=(pid, nproc),

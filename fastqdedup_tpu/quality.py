@@ -7,8 +7,8 @@ arithmetic mean of ``10 ** (-Q / 10)`` over a phred ASCII string using a
 ``[phred_offset, 126]``.  The scalar :func:`average_error_rate` here is the
 drop-in API; :func:`batch_average_error_rate` is the vectorized host path used
 by the pipeline (bit-exact to the sequential C loop: it accumulates in float64
-in left-to-right order via ``np.cumsum``).  The TPU-resident version lives in
-``fastqdedup_tpu.ops.phred``.
+in left-to-right order via ``np.cumsum``).  The device-resident version lives
+in ``fastqdedup_tpu.ops.phred``.
 """
 
 from typing import Optional

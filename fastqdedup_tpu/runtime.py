@@ -1,9 +1,11 @@
-"""JAX runtime configuration (compilation cache, platform probing).
+"""JAX runtime configuration (compilation cache, platform choice) and the
+host buffer pool.
 
 The pipeline compiles a small, bounded family of kernel shapes (tile sizes
-and bucket size-classes are padded to powers of two); the persistent
+and bucket size-classes are padded to fixed geometries); the persistent
 compilation cache makes those compiles a one-time cost per machine instead
-of per run.  Disable with ``FASTQDEDUP_JAX_CACHE=0``.
+of per run.  The cache lives where ``JAX_COMPILATION_CACHE_DIR`` says, or
+else at the fixed path :data:`DEFAULT_CACHE_DIR` inside the checkout.
 """
 
 import os
@@ -98,8 +100,8 @@ def _default_pool_limit() -> int:
     the old fixed 2 GiB cap, so every run re-faulted tens of GiB of
     lazily-backed pages (2-8 s/GiB on this class of host).  Pooled
     buffers stay MAPPED, and mapped pages stay cheap under virtio free
-    page reporting — retaining them across runs is the documented
-    mitigation (BASELINE.md "Measurement environment"), and a service
+    page reporting — retaining them across runs is the mitigation, and a
+    service
     holding its steady-state working set resident is the intent.  RAM/4
     proved exactly one buffer too small at 100M reads: the ~21 GiB of
     parse chunks released at run end filled the cap, so the 3 GiB key
@@ -323,31 +325,54 @@ def tune_host_allocator() -> None:
         pass
 
 
+# Compile cache used when JAX_COMPILATION_CACHE_DIR is unset: a fixed path
+# inside the checkout (the path is part of the cache key, so it must not
+# move between runs).
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".jax_cache")
+
+
+def compile_cache_dir() -> str:
+    """The persistent compile cache directory this process uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_CACHE_DIR
+
+
+def platform() -> str:
+    """``"gpu"`` or ``"cpu"``: the JAX backend the device path runs on.
+
+    The one place that decides what runs where: on an accelerator the
+    edit path measures the host link before it ships the key matrix
+    (``engine._edit_edges_entries``).  Any other backend raises rather
+    than silently running forms that were never checked on it."""
+    import jax
+
+    backend = jax.default_backend()
+    if backend not in ("gpu", "cpu"):
+        raise RuntimeError(
+            f"unsupported JAX backend {backend!r}: fastqdedup runs on an "
+            f"NVIDIA GPU or on the CPU")
+    return backend
+
+
 def configure_jax() -> None:
-    """Enable the persistent XLA compilation cache (idempotent)."""
+    """Enable the persistent XLA compilation cache (idempotent).
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is JAX's own setting and is
+    left alone; otherwise the cache goes to :data:`DEFAULT_CACHE_DIR`."""
     global _configured
     tune_host_allocator()
     if _configured:
         return
     _configured = True
-    cache_dir = os.environ.get(
-        "FASTQDEDUP_JAX_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "fastqdedup_tpu",
-                     "jax_cache"))
-    if cache_dir in ("", "0"):
-        return
-    try:
-        import jax
+    import jax
 
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        # Pallas kernels serialize their Mosaic IR (with MLIR locations)
-        # into the custom-call payload; full-traceback locations embed the
-        # CALLER's source lines, which vary per process/script and change
-        # the cache key — every process would recompile (minutes on a
-        # remote TPU).  Innermost-frame locations are stable.
-        jax.config.update("jax_include_full_tracebacks_in_locations", False)
-    except Exception:  # pragma: no cover - cache is a best-effort speedup
-        pass
+    cache_dir = compile_cache_dir()
+    os.makedirs(cache_dir, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    # Pallas kernels serialize their IR, MLIR locations included, into the
+    # custom-call payload; full-traceback locations embed the caller's
+    # source lines and would change the cache key per calling script.
+    jax.config.update("jax_include_full_tracebacks_in_locations", False)

@@ -2,9 +2,9 @@
 
 The reference's ``Trie`` (_triemodule.c) is both a data structure and an
 algorithm: a memory-compact radix trie whose ``pop_cluster`` walks out one
-connected component of the within-distance relation per call.  On TPU the
-winning formulation is dense (see fastqdedup_tpu.engine), so this class keeps
-the *contract* of the C type — the ``_trie.pyi`` surface: ``add_sequence``,
+connected component of the within-distance relation per call.  On an
+accelerator the winning formulation is dense (see fastqdedup_tpu.engine), so
+this class keeps the *contract* of the C type — the ``_trie.pyi`` surface: ``add_sequence``,
 ``contains_sequence``, ``pop_cluster``, ``number_of_sequences``,
 ``alphabet``, ``memory_size``, ``raw_stats`` — while the distance work runs
 through the batched kernels.

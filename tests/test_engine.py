@@ -294,7 +294,7 @@ def test_host_device_crossover_moves_with_dispatch_cost(monkeypatch):
 
 def test_pair_source_fraction_logged(caplog):
     """DEBUG output reports how many pairs were verified on host vs
-    device (VERDICT round-2 item 5)."""
+    device."""
     import logging
 
     import numpy as np

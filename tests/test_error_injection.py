@@ -1,4 +1,4 @@
-"""Error injection for the async ingest/write stack (VERDICT r2 item 10).
+"""Error injection for the async ingest/write stack.
 
 The pipeline runs a parse producer + BGZF inflate helpers (C threads), a
 quality worker, an accumulate worker, and a writer thread.  These tests

@@ -102,7 +102,7 @@ def test_sharded_on_smaller_mesh():
 
 
 # --------------------------------------------------------------------- #
-# Mesh routing observability (VERDICT r4 weak #5): the engine must
+# Mesh routing observability: the engine must
 # actually take the mesh path on a multi-device backend, the fallback
 # must be loud, and FASTQDEDUP_REQUIRE_MESH must make it fatal.
 

@@ -4,8 +4,7 @@
 # Builds an -fsanitize=address variant of _fastq_io.c and runs the test
 # files that exercise it without importing jaxlib's compiled extensions
 # (whose statically linked unwinder trips the ASan __cxa_throw
-# interceptor — an environment incompatibility, not a finding; see the
-# note in BASELINE.md).  The reference ships no sanitizer job at all
+# interceptor — an environment incompatibility, not a finding).  The reference ships no sanitizer job at all
 # (SURVEY.md §5).
 #
 # Usage: sh tools/asan_check.sh

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """100M-read flagship measurement: in-process sustained rep hunt.
 
-Generates (once) the standard 100M x 100 bp BGZF input used for every
-recorded 100M number in BASELINE.md (bench.generate_fastq defaults:
+Generates (once) the standard 100M x 100 bp BGZF input
+(bench.generate_fastq defaults:
 seed 7, 5x duplication, ~15% single-substitution error profile), then
 runs the full dedup pipeline repeatedly IN ONE PROCESS — the steady
 state a long-lived service sees, and the only state that is measurable
 on hosts with virtio free-page reporting, where freed pages return to
 the hypervisor within seconds so every fresh process re-pays full page
-backing (BASELINE.md "Measurement environment").
+backing.
 
 Per rep it prints wall time, output sha256 (must be identical every
 rep), fresh page mappings and CPU time; at the end one JSON summary

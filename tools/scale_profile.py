@@ -3,8 +3,8 @@
 
 Launches P pinned jax.distributed processes on one generated input (like
 bench_scaling.py) with DEBUG logging, and saves every host's full output
-to /tmp/scale_prof_P{P}_host{i}.log so the per-stage budget table in
-BASELINE.md can be re-derived after pipeline changes.
+to /tmp/scale_prof_P{P}_host{i}.log so the per-stage budget can be
+re-derived after pipeline changes.
 
 Usage: python tools/scale_profile.py [P] [reads]
 """
