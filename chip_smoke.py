@@ -17,11 +17,12 @@
    ``JAX_PLATFORMS=cpu``) on the same input and arguments, and each route
    the phase exists to drive must do device work; where the measured
    host/device crossovers keep a route on the host, the phase forces it
-   with the FASTQDEDUP_HOST_BUCKET_CAP / _DISPATCH_S / _H2D_RATE /
-   _HOST_RATE overrides and says so.
+   (a fixed host bucket cap, or the FASTQDEDUP_DISPATCH_S / _H2D_RATE
+   rate overrides) and says so.
 
 ``--four-cards`` runs phase 3(a) alone, on four cards in one process, with
-``FASTQDEDUP_REQUIRE_MESH=1`` so the mesh carries the clustering.
+``FASTQDEDUP_REQUIRE_MESH=1`` so the mesh carries the clustering; the
+forced size-class run repeats until every card has received a batch.
 
 Any failure raises, so the script exits non-zero and prints no result.
 The last line of standard output is the result:
@@ -29,7 +30,9 @@ The last line of standard output is the result:
 """
 
 import argparse
+import contextlib
 import hashlib
+import importlib.util
 import json
 import os
 import shutil
@@ -43,15 +46,16 @@ READS = 4_000_000
 READ_LEN = 100
 UMI_LEN = 12
 
-# Overrides that force a route onto the device when the measured
-# crossovers keep it on the host: buckets of more than 4 keys to the
-# size classes; the edit key matrix to the card; small-bucket candidates
-# to the pair-list route; buckets of more than 8 keys to the size classes.
-FORCE_BUCKETS = {"FASTQDEDUP_HOST_BUCKET_CAP": "4"}
-FORCE_EDIT = {"FASTQDEDUP_H2D_RATE": "1e12"}
-FORCE_PAIRLIST = {"FASTQDEDUP_DISPATCH_S": "1e-9",
-                  "FASTQDEDUP_H2D_RATE": "1e12"}
-FORCE_CLASSES = {"FASTQDEDUP_HOST_BUCKET_CAP": "8"}
+# What forces a route onto the device when the measured crossovers keep
+# it on the host, as (environment overrides, host bucket cap or None):
+# buckets of more than 4 keys to the size classes; the edit key matrix
+# to the card; small-bucket candidates to the pair-list route; buckets
+# of more than 8 keys to the size classes.
+FORCE_BUCKETS = ({}, 4)
+FORCE_EDIT = ({"FASTQDEDUP_H2D_RATE": "1e12"}, None)
+FORCE_PAIRLIST = ({"FASTQDEDUP_DISPATCH_S": "1e-9",
+                   "FASTQDEDUP_H2D_RATE": "1e12"}, None)
+FORCE_CLASSES = ({}, 8)
 
 
 def check(ok: bool, what: str) -> None:
@@ -64,15 +68,32 @@ def log(msg: str = "") -> None:
 
 
 def build_native() -> None:
-    """Rebuild the host library from its C source, so no build from
-    another machine is reused, and refuse the pure-Python fallback."""
+    """Rebuild the host library from its C source before any of the
+    package is imported, so no build from another machine is loaded,
+    then check that the loaded library is the rebuilt file (which also
+    refuses the pure-Python fallback)."""
     os.environ.pop("FASTQDEDUP_NATIVE_LIB", None)
-    from fastqdedup_tpu.native import build
+    check("fastqdedup_tpu" not in sys.modules,
+          "the package was imported before the native build")
+    # build.py by path: importing it through the package would run
+    # native/__init__.py, which loads whatever library is on disk.
+    spec = importlib.util.spec_from_file_location(
+        "_native_build", os.path.join(REPO, "fastqdedup_tpu", "native",
+                                      "build.py"))
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)
     t0 = time.perf_counter()
     path = build.build()
-    import fastqdedup_tpu.native.loader  # noqa: F401 - must load
-    log(f"native library rebuilt from source: {path} "
-        f"({time.perf_counter() - t0:.1f} s)")
+    dt = time.perf_counter() - t0
+    from fastqdedup_tpu.native import loader
+    inode = os.stat(path).st_ino
+    with open("/proc/self/maps") as f:
+        mapped = {int(line.split()[4]) for line in f
+                  if os.path.basename(path) in line}
+    check(os.path.samefile(loader._lib._name, path) and mapped == {inode},
+          f"the loaded native library is not the rebuilt {path}")
+    log(f"native library rebuilt from source and loaded: {path} "
+        f"({dt:.1f} s)")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -363,13 +384,45 @@ def _routes(diff) -> str:
     return ", ".join(f"{k}={v}" for k, v in sorted(diff.items())) or "none"
 
 
+@contextlib.contextmanager
+def _forced(force):
+    """Apply a FORCE_* pair for the duration of the block."""
+    from fastqdedup_tpu.ops import bucket
+    env, cap = force
+    saved_env = {k: os.environ.get(k) for k in env}
+    saved_cap = bucket.choose_host_bucket_cap
+    os.environ.update(env)
+    if cap is not None:
+        bucket.choose_host_bucket_cap = \
+            lambda sizes, length, limit, **kw: min(cap, limit)
+    try:
+        yield
+    finally:
+        bucket.choose_host_bucket_cap = saved_cap
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _describe(force) -> str:
+    env, cap = force
+    parts = [f"{k}={v}" for k, v in env.items()]
+    if cap is not None:
+        parts.append(f"host bucket cap {cap}")
+    return ", ".join(parts)
+
+
 def _run_phase(name: str, src: str, edit: bool, drives,
-               cpu_sha: str):
-    """Cold and warm runs through deduplicate_cluster, then one forced
-    run for each driven route the measured crossovers kept on the host.
+               cpu_sha: str, attempts: int = 1):
+    """Cold and warm runs through deduplicate_cluster, then forced runs
+    for each driven route the measured crossovers kept on the host, up
+    to ``attempts`` of them until the route's test holds.
 
     ``drives`` maps a route to (test of the run's route counters, the
-    overrides that force it).  Returns the counters summed over runs."""
+    FORCE_* pair that forces it).  Returns the counters summed over
+    runs."""
     import collections
 
     from fastqdedup_tpu.dissect import CLUSTER_DISSECTION_METHODS
@@ -401,17 +454,12 @@ def _run_phase(name: str, src: str, edit: bool, drives,
         if test(total):
             continue
         log(f"  measured crossovers kept {route} on the host; forcing it "
-            f"with {force}")
-        saved = {k: os.environ.get(k) for k in force}
-        os.environ.update(force)
-        try:
-            run(f"forced {route}")
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+            f"with {_describe(force)}")
+        for _ in range(attempts):
+            with _forced(force):
+                run(f"forced {route}")
+            if test(total):
+                break
         check(test(total), f"{name}: no device work on {route}")
     return total
 
@@ -439,7 +487,7 @@ def phase_pipeline(jax, four_cards: bool) -> None:
             "3(a) Hamming d=1, four cards", src, False,
             {"bucket batches on every device":
              (lambda c: all(c[k] > 0 for k in devices), FORCE_BUCKETS)},
-            _cpu_sha(src, False))
+            _cpu_sha(src, False), attempts=len(devices))
         mesh = sharded.MESH_COMPONENT_RUNS - runs
         log(f"  MESH_COMPONENT_RUNS +{mesh}; bucket batches per device "
             f"over the phase: {[total[k] for k in devices]}")
@@ -469,12 +517,12 @@ def main() -> None:
     parser.add_argument("--four-cards", action="store_true",
                         help="run phase 3(a) alone on four cards")
     args = parser.parse_args()
-    # The package must be here: the script alone is not the program.
-    sys.path.insert(0, REPO)
-    import fastqdedup_tpu  # noqa: F401
     # A CUDA plugin that fails to start must stop the run, not fall back
     # to the CPU.
     os.environ["JAX_PLATFORMS"] = "cuda"
+    # The package must be here (the script alone is not the program);
+    # the native build fails first if it is not.
+    sys.path.insert(0, REPO)
     build_native()
     import jax
 

@@ -428,18 +428,18 @@ def test_compile_cache_follows_env_var(fresh_jax_config, monkeypatch,
 
     runtime = fresh_jax_config
     target = tmp_path / "cache"
+    # A default of this test's own, so other workers' compiles into the
+    # shared checkout cache cannot show up in it.
+    default = tmp_path / "default"
+    monkeypatch.setattr(runtime, "DEFAULT_CACHE_DIR", str(default))
     monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(target))
     runtime.configure_jax()
     assert jax.config.jax_compilation_cache_dir == str(target)
     compilation_cache.reset_cache()
-    before = set(os.listdir(runtime.DEFAULT_CACHE_DIR)) \
-        if os.path.isdir(runtime.DEFAULT_CACHE_DIR) else set()
     # A program no other test compiles, so the write is a fresh entry.
     jax.jit(lambda x: x * 3 + 11)(jnp.arange(17.0)).block_until_ready()
     assert os.listdir(target), "nothing was cached in the chosen dir"
-    after = set(os.listdir(runtime.DEFAULT_CACHE_DIR)) \
-        if os.path.isdir(runtime.DEFAULT_CACHE_DIR) else set()
-    assert after == before
+    assert not default.exists(), "the default dir was used as well"
 
 
 def test_compile_cache_defaults_to_checkout(fresh_jax_config,
